@@ -5,7 +5,7 @@ preconditioned CG yields the solve AND the logdet, with a gradient).
 Because the sparse LML is differentiable here, GRADIENT-based training
 (method="local"/"adam") works at scale — the reference restricts this
 regime to MCMC/BO.  Scale N up on real hardware (the public API runs
-N=1,000,000 on one TPU chip with args={"gp2Scale_storage_dtype":
+N=1,000,000 on one device with args={"gp2Scale_storage_dtype":
 "bfloat16", "gp2Scale_solver_dtype": "bfloat16"}); this script sizes
 itself modestly so it runs anywhere."""
 import os as _os, sys as _sys

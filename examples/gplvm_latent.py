@@ -25,7 +25,7 @@ def main():
     m = GPLVM(Y, latent_dim=1)
     print("initial LML:", m.log_likelihood())
 
-    # 1) joint Adam over (latents, kernel hps, noise) — the TPU-first path
+    # 1) joint Adam over (latents, kernel hps, noise) — the accelerator-first path
     m.train(max_iter=600)
     print("after adam:  LML:", m.log_likelihood())
 

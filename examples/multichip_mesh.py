@@ -4,7 +4,7 @@ Each mesh device owns a contiguous range of covariance row blocks and
 exactly the tiles that write them, so the training step's SpMM needs no
 cross-device reduction (parallel/partition.py; comm model in
 docs/source/comm_model.md).  The SAME public-API code runs on one chip, a
-TPU pod slice, or — as here, for demonstration — a virtual CPU mesh.
+multi-GPU host, or — as here, for demonstration — a virtual CPU mesh.
 
 Run with a virtual 8-device mesh:
 

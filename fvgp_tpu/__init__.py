@@ -1,4 +1,4 @@
-"""fvgp_tpu — a TPU-native exact Gaussian-process framework.
+"""fvgp_tpu — an exact Gaussian-process framework in JAX.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 lbl-camera/fvGP: single-task / multi-task / non-Euclidean exact GPs,
@@ -6,7 +6,7 @@ pluggable kernel/mean/noise callables, six hyperparameter-training methods
 (sync + async), a swappable linear-algebra state machine from dense Cholesky
 to preconditioned Krylov + stochastic-Lanczos log-determinants, and a
 distributed block-sparse covariance path ("gp2Scale" equivalent) sharded
-over TPU meshes.
+over device meshes.
 
 Public surface mirrors the reference (/root/reference/fvgp/__init__.py):
 ``GP``, ``fvGP``, ``gpMCMC``, ``ProposalDistribution``, ``GGMP``.

@@ -1,14 +1,14 @@
 """Global precision / device policy for fvgp_tpu.
 
-The reference library (lbl-camera/fvGP) runs float64 numpy/scipy everywhere
-(`/root/reference/fvgp/gp_lin_alg.py`). On TPU the MXU natively computes
-bf16/f32; float64 exists but is emulated and slow.  The policy here is:
+The reference library (lbl-camera/fvGP) runs float64 numpy/scipy everywhere.
+Accelerators compute bf16/f32 natively; float64 runs far slower there.  The
+policy here is:
 
 * ``jax_enable_x64`` is switched on at import (opt out with FVGP_TPU_X64=0)
   so that CPU runs — the parity/oracle regime — match the reference to 1e-8.
 * Linear algebra runs in :func:`linalg_dtype` (default float64 on CPU,
-  float32 on TPU).  Kernel *assembly* can additionally run a fast bf16/f32
-  MXU path controlled per-GP via ``args["dtype"]``.
+  float32 on an accelerator).  Kernel *assembly* can additionally run a
+  bf16/f32 path controlled per-GP via ``args["dtype"]``.
 
 Everything downstream asks this module instead of hard-coding dtypes.
 """
@@ -23,28 +23,31 @@ if os.environ.get("FVGP_TPU_X64", "1") != "0":
     jax.config.update("jax_enable_x64", True)
 
 # --- persistent compilation cache ----------------------------------------
-# The N~1M traced sparse LML compiles in tens of seconds on TPU; caching
-# the executable on disk makes every process after the first start at full
-# speed (the large-N "time to first gradient" lever).  Opt out with
-# FVGP_TPU_COMPILE_CACHE=0, redirect with FVGP_TPU_COMPILE_CACHE_DIR.
+# The N~1M traced sparse LML compiles in tens of seconds; caching the
+# executable on disk makes every process after the first start at full
+# speed.  Where JAX_COMPILATION_CACHE_DIR is set, JAX reads it and no path
+# is set here; otherwise the cache lives at a fixed path inside the
+# checkout, <repo>/.cache/jax (a moving path never hits).  Opt out with
+# FVGP_TPU_COMPILE_CACHE=0.
 # NOT enabled when the env pins a CPU backend: XLA:CPU AOT entries record
 # the compile machine's feature set, and loading one on a different host
 # risks SIGILL (cpu_aot_loader logs exactly this when a cache written by
 # another machine is read) — CPU programs recompile in seconds anyway.
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".cache", "jax")
 if (os.environ.get("FVGP_TPU_COMPILE_CACHE", "1") != "0"
         and os.environ.get("JAX_PLATFORMS", "").strip().lower() != "cpu"):
-    _cache_dir = os.environ.get(
-        "FVGP_TPU_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "fvgp_tpu_jax"))
     try:
-        os.makedirs(_cache_dir, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", _cache_dir)
+        if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+            os.makedirs(CACHE_DIR, exist_ok=True)
+            jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
         # only expensive programs (the large-N LML, big posteriors) are
         # worth a disk entry; tiny programs recompile faster than the
         # load-and-feature-check round trip
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 3.0)
         jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:                     # unwritable home: stay in-memory
+    except OSError:                       # unwritable checkout: in-memory
         pass
 
 import jax.numpy as jnp  # noqa: E402  (after x64 switch)
@@ -66,7 +69,7 @@ def linalg_dtype(args=None):
     """The dtype of the factorization/solve path.
 
     Priority: per-GP ``args['dtype']`` > global override > backend default
-    (float64 on CPU when x64 is on, float32 on TPU/GPU).
+    (float64 on CPU when x64 is on, float32 on an accelerator).
     """
     if isinstance(args, dict) and args.get("dtype") is not None:
         return jnp.dtype(args["dtype"])
@@ -79,7 +82,7 @@ def linalg_dtype(args=None):
 
 def kernel_compute_dtype(args=None):
     """Dtype in which kernel matrices are assembled (may be lower precision
-    than the linalg dtype on the MXU)."""
+    than the linalg dtype)."""
     if isinstance(args, dict) and args.get("kernel_dtype") is not None:
         return jnp.dtype(args["kernel_dtype"])
     return linalg_dtype(args)

@@ -5,7 +5,7 @@ The reference exposes its L0 numerics as free functions
 (``calculate_Chol_factor``, ``calculate_sparse_conj_grad``,
 ``calculate_random_logdet``, ...) that power users import directly.  This
 module provides the same names with the same call signatures and numpy
-in/out conventions, delegating to the TPU-native implementations in
+in/out conventions, delegating to the device implementations in
 ``fvgp_tpu.ops`` (where the actual algorithms — and their tests — live).
 
 Conventions preserved from the reference:
@@ -21,7 +21,7 @@ Conventions preserved from the reference:
 Documented deviation: the sparse *direct* family (``calculate_sparse_LU_*``,
 ``calculate_sparse_solve``) is served by dense Cholesky below
 ``args['sparse_direct_dense_cutoff']`` and tightly-converged preconditioned
-CG above it — sparse LU factorization is not TPU-idiomatic (STATUS.md §2b).
+CG above it — sparse LU factorization does not map onto an accelerator.
 """
 
 import numpy as np
@@ -77,7 +77,7 @@ def calculate_Chol_factor(M, compute_device="cpu", args=None):
 def update_Chol_factor(old_chol_factor, new_matrix, compute_device="cpu",
                        args=None):
     """Extend a factor to cover appended rows/columns (ref gp_lin_alg.py:272)
-    — here one blocked trailing update on the MXU, not sequential rank-1
+    — here one blocked trailing update on the device, not sequential rank-1
     sweeps."""
     return _np(_dense.update_chol_factor(np.asarray(old_chol_factor),
                                          np.asarray(new_matrix)))
@@ -369,7 +369,7 @@ def get_gpu_engine(args):
     """The reference returns a torch/cupy module for its GPU branches
     (ref gp_lin_alg.py:148); this build has no separate GPU engine — every
     array op is one JAX/XLA program that runs on whatever backend jax
-    initialized (TPU here).  Returns ``None`` always."""
+    initialized (the accelerator here).  Returns ``None`` always."""
     return None
 
 
@@ -379,7 +379,7 @@ def gpu_engine_unavailable_reason(engine, args=None):
     enable — compute already runs on the accelerator via XLA."""
     return (f"GPU engine {engine!r} is not used by fvgp_tpu: all linear "
             "algebra compiles through JAX/XLA onto the active backend "
-            "(TPU/CPU); torch/cupy device branches do not exist. "
+            "(GPU/CPU); torch/cupy device branches do not exist. "
             "Remove 'Chol_*_compute_device'/'GPU_engine' args or leave "
             "them — they are accepted and ignored.")
 
@@ -394,7 +394,7 @@ def spai(A, m, args=None):
         ``alpha = tr(G^T A G) / ||A G||_F^2``
 
     which monotonically reduces ``||I - A M||_F`` for SPD ``A``.  Host
-    scipy computation — this is a setup-time operation; the TPU solvers
+    scipy computation — this is a setup-time operation; the device solvers
     take preconditioners as batched operators (ops/precond.py), and a CSR
     ``M`` can be wrapped as ``M=(lambda X, d: d @ X, M_dense)`` for the
     host path or used with scipy's own cg."""

@@ -1,14 +1,14 @@
-"""Kernel catalog — JAX/TPU-native implementations of every kernel family the
+"""Kernel catalog — JAX-native implementations of every kernel family the
 reference library ships (parity target: /root/reference/fvgp/kernels.py).
 
-Design notes (TPU-first, not a port):
+Design notes (accelerator-first, not a port):
 
 * All kernels are pure ``jnp`` functions: jit-able, vmap-able and
   ``jax.grad``-differentiable with respect to the hyperparameters.  The
   reference's hand-written kernel gradients and finite-difference fallbacks
   are therefore unnecessary on the traced path — autodiff supplies them.
 * Distance matrices are computed with the ``||a-b||² = |a|² + |b|² - 2a·b``
-  expansion so the O(N²D) work lands on the MXU as one matmul
+  expansion so the O(N²D) work lands on the matrix units as one matmul
   (vs the reference's per-dimension outer-subtract loops,
   kernels.py:440-481).  An ``abs``+clip guards the cancellation-negative
   diagonal.
@@ -52,7 +52,7 @@ __all__ = [
     "non_stat_kernel", "non_stat_kernel_gradient",
     "get_distance_matrix", "get_anisotropic_distance_matrix",
     "default_matern_ard", "wendland_anisotropic_gp2Scale_cpu",
-    "wendland_anisotropic_gp2Scale_gpu", "wendland_anisotropic_tpu",
+    "wendland_anisotropic_gp2Scale_gpu",
     "wendland_anisotropic_gp2Scale_cpu_sparse",
     "wendland_anisotropic_gp2Scale_gpu_sparse",
     "wasserstein_1d", "wasserstein_1d_outer_vec",
@@ -74,7 +74,7 @@ def _sq_dist(x1, x2):
       breaks 1e-8 posterior parity on the diagonal).  O(N² D) VPU work; for
       the small D of GP index sets this is cheap and XLA fuses it into the
       kernel polynomial that follows.
-    * the matmul expansion on the MXU for high-D inputs (deep-kernel
+    * the matmul expansion on the matrix units for high-D inputs (deep-kernel
       embeddings), where the D-fold broadcast would dominate and the scale
       of the FLOPs earns the systolic array.
     """
@@ -233,8 +233,7 @@ def wendland_anisotropic(x1, x2, hyperparameters):
 
 
 # The reference exposes cpu/gpu variants of the same math
-# (kernels.py:502, :539); on TPU there is exactly one implementation.
-wendland_anisotropic_tpu = wendland_anisotropic
+# (kernels.py:502, :539); here there is exactly one implementation.
 wendland_anisotropic_gp2Scale_cpu = wendland_anisotropic
 wendland_anisotropic_gp2Scale_gpu = wendland_anisotropic
 
@@ -244,7 +243,7 @@ def wendland_anisotropic_gp2Scale_cpu_sparse(x1, x2, hyperparameters):
     only the in-support entries stored — name/shape parity with the
     reference's KD-tree sparse kernels (ref kernels.py:658-738, :741-840).
 
-    Values are identical to :func:`wendland_anisotropic`; on TPU the
+    Values are identical to :func:`wendland_anisotropic`; here the
     sparsity is exploited structurally (tile pruning + the exact zero-tile
     filter) rather than per element, so this exists for drop-in
     compatibility with reference code that passes the ``_sparse`` kernels

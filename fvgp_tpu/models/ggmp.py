@@ -10,7 +10,7 @@ two-phase: per-GP type-II ML, then EM re-optimization of the mixture weights
 against the observed densities or samples.  Posterior mean/variance combine
 the K GPs by the law of total variance (ref ggmp.py:695-780).
 
-TPU notes: the K component GPs share dataset shapes, so their posteriors are
+Device notes: the K component GPs share dataset shapes, so their posteriors are
 evaluated back-to-back through the same jitted programs (one compile serves
 all components); K is small, so the mixture algebra is host work.
 """
@@ -687,7 +687,7 @@ class GGMP:
         else:
             self.gp_mean_functions = [constant_mean] * likelihood_terms
         self.gp_init_kwargs = dict(gp_init_kwargs or {})
-        # accepted for API parity; devices are managed by JAX on TPU
+        # accepted for API parity; devices are managed by JAX
         self.gp_device_ids = gp_device_ids
         self.gp_eval_parallel = bool(gp_eval_parallel)
         self.likelihoods = []

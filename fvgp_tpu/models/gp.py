@@ -7,12 +7,12 @@ reference surface: ``train`` (six methods, sync + async), ``update_gp_data``
 (append with blocked rank-n factor updates), the posterior and
 information-theory suite, validation metrics, the ``args`` dict, pickling.
 
-TPU-first differences from the reference, by design:
+Accelerator-first differences from the reference, by design:
 
 * No Dask client anywhere — gp2Scale covariance lives on the device mesh
   (parallel/), async training actors are controller threads.  ``dask_client``
   parameters are accepted and ignored for drop-in compatibility.
-* ``compute_device`` accepts "cpu" / "gpu" / "tpu" but is a placement *hint*:
+* ``compute_device`` accepts "cpu" / "gpu" but is a placement *hint*:
   arrays live wherever JAX's backend puts them; precision is governed by
   config.linalg_dtype and ``args['dtype']``.
 * When kernel/mean/noise are jnp callables (the default), training uses one
@@ -57,7 +57,7 @@ class GP:
     posterior suite (:meth:`posterior_mean`, :meth:`posterior_covariance`,
     and the information-theory methods).  The public surface matches the
     reference ``fvgp.GP`` (ref gp.py:382-401) so existing fvGP code runs
-    unchanged; the execution model underneath is JAX on TPU/CPU.
+    unchanged; the execution model underneath is JAX on GPU/CPU.
 
     Parameters
     ----------
@@ -80,7 +80,7 @@ class GP:
         exclusive with ``noise_function``.  When neither is given the
         noise defaults to the reference's ``(0.01·mean|y|)²`` floor.
     compute_device : str
-        ``"cpu"`` / ``"gpu"`` / ``"tpu"`` — a *hint* kept for API parity.
+        ``"cpu"`` / ``"gpu"`` — a *hint* kept for API parity.
         Arrays live wherever the active JAX backend puts them; numeric
         precision is controlled via ``args['dtype']`` instead.
     kernel_function : Callable, optional
@@ -123,7 +123,7 @@ class GP:
         :meth:`initialize_gp2Scale_dask_client`.
     gp2Scale_batch_size : int
         Covariance tile edge B for the gp2Scale path (clamped to a
-        TPU-friendly ≤256 unless overridden by
+        ≤256 unless overridden by
         ``args['gp2Scale_block_size']``).
     gp2Scale_distribution : str
         ``"blockwise"`` (upper-triangle tile schedule, mirrored on
@@ -140,7 +140,7 @@ class GP:
         backend.  Deviation from the reference: ``sparseLU`` /
         ``sparseSolve`` are served by dense Cholesky below
         ``args['sparse_direct_dense_cutoff']`` and tight preconditioned
-        CG above it — sparse *direct* factorization is not TPU-idiomatic.
+        CG above it — sparse *direct* factorization does not suit a GPU.
     ram_economy : bool
         For host-gradient kernels: ``True`` evaluates one hyperparameter
         direction at a time (less memory, more calls); ``False`` expects
@@ -160,7 +160,7 @@ class GP:
         * ``warm_start`` — Krylov warm-start reuse across sequential
           evaluations (MCMC),
 
-        — plus the TPU-specific:
+        — plus the accelerator-specific:
 
         * ``dtype`` / ``kernel_dtype`` — linalg / kernel eval dtypes,
         * ``gp2Scale_block_size`` — tile edge B (default ≤256),
@@ -332,12 +332,12 @@ class GP:
 
     @property
     def dask_client(self):
-        """Always None — the TPU build has no Dask; kept for API parity."""
+        """Always None — this build has no Dask; kept for API parity."""
         return None
 
     def initialize_gp2Scale_dask_client(self, gp2Scale=None, dask_client=None):
         """API-parity no-op (ref gp.py:2126-2134).  The reference lazily spins
-        up a local ``dask.distributed`` cluster here; the TPU build distributes
+        up a local ``dask.distributed`` cluster here; this build distributes
         the covariance over a ``jax.sharding.Mesh`` instead, so there is no
         client to create.  Returns the (ignored) ``dask_client`` argument."""
         return dask_client
@@ -1050,7 +1050,7 @@ class GP:
 
     def get_gp2Scale_exec_time(self, time_per_worker_execution, number_of_workers):
         """Covariance wall-clock cost model t = D²·t_block/(2·n·batch²)
-        (ref gp.py:2104-2124); on TPU, "workers" are devices."""
+        (ref gp.py:2104-2124); here, "workers" are devices."""
         b = self.prior.batch_size
         D = len(self.x_data)
         return (D ** 2 * time_per_worker_execution) / (2. * number_of_workers * b ** 2)

@@ -1,7 +1,7 @@
 """Asynchronous training actors (parity target: /root/reference/fvgp/gp_actor.py).
 
 The reference runs MCMC/Adam/BO inside Dask actors on remote workers with a
-lock-protected ``get_latest()`` snapshot and cooperative ``stop()``.  On TPU
+lock-protected ``get_latest()`` snapshot and cooperative ``stop()``.  On a GPU
 the controller process drives the device, so the actor is a daemon *thread*
 on the controller issuing jitted device calls — same polling contract
 (get_latest / stop / cancel_tasks / kill_client), no process boundary, no

@@ -10,7 +10,7 @@ value-and-location patience convergence, a noise-aware recommendation, a
 Laplace theta-posterior with curvature sensitivity, and the ``bo_info`` dict
 keys.
 
-TPU-first design decisions (no equivalent in the reference):
+Accelerator-first design decisions (no equivalent in the reference):
 
 * the surrogate's kernel/mean/noise are jnp functions, so its type-II ML
   training runs on the fused jitted ``value_and_grad`` — none of the

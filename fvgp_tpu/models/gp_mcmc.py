@@ -11,8 +11,8 @@ Design here:
 
 * ``run_mcmc_vectorized`` is the PRIMARY sampler: C chains whose C marginal
   likelihoods per step run as ONE batched device program (vmapped Cholesky
-  on the MXU).  Metropolis adaptation is inherently sequential (SURVEY.md
-  §7 hard part 6) — the chain axis is what the TPU amortizes.
+  on the device).  Metropolis adaptation is inherently sequential (SURVEY.md
+  §7 hard part 6) — the chain axis is what the device amortizes.
 * Both samplers share one Robbins–Monro adaptation step (``shaby_update``,
   Shaby & Wells' log-adaptive scheme targeting acceptance 0.234).
 * Documented deviation from the reference: the adapted step scale

@@ -1,13 +1,14 @@
 """Posterior suite (parity target: /root/reference/fvgp/gp_posterior.py).
 
 All heavy math runs on device (solves against the committed factorization,
-einsum variance fast path on the MXU); returned dicts carry host numpy
+einsum variance fast path on the device); returned dicts carry host numpy
 arrays with the reference's exact keys and multi-task task-major layouts
 (k = point + V*task, ref gp_posterior.py:263-275).
 """
 
 import warnings
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -180,7 +181,11 @@ class GPposterior:
             elif is_block_sparse(k):
                 parts.append(k.rmatmat(solved))
             else:
-                parts.append(kd.T @ solved)
+                # full f32 precision: the variance is kk minus this product,
+                # and both are O(prior variance), so a TF32 product's ~5e-4
+                # relative error lands undamped in the difference
+                parts.append(jnp.matmul(kd.T, solved,
+                                        precision=jax.lax.Precision.HIGHEST))
         if diag:
             return jnp.concatenate(parts)
         return jnp.concatenate(parts, axis=1)
@@ -282,7 +287,9 @@ class GPposterior:
         if self.KVinv is not None and variance_only and self.y_data.shape[1] == 1:
             kd = self._dense(k)
             S = None
-            v = jnp.diagonal(kk) - jnp.einsum("ji,jk,ki->i", kd, self.KVinv, kd)
+            v = jnp.diagonal(kk) - jnp.einsum(
+                "ji,jk,ki->i", kd, self.KVinv, kd,
+                precision=jax.lax.Precision.HIGHEST)  # see _cross_solve_product
             # np.asarray of a device array is a READ-ONLY view; the negative-
             # variance clip below mutates in place
             v = np.array(v)

@@ -249,7 +249,7 @@ class GPtraining:
                                 tol=1e-4, max_iter=120, info=False,
                                 batched_objective=None, constraints=()):
         """best/1/bin differential evolution.  With a batched objective the
-        whole population is one vmapped device call per generation — the MXU
+        whole population is one vmapped device call per generation — the GPU
         evaluates pop_size·H Choleskys in a single batched program
         (replaces scipy differential_evolution, ref gp_training.py:60-80).
         Constraints are honored by Deb's feasibility rules, matching scipy
@@ -308,7 +308,7 @@ class GPtraining:
                                  lr=0.05):
         """Advance ALL restarts in lockstep on the device: a jitted
         lax.scan of (vmapped value_and_grad -> Adam -> bound projection).
-        This is the TPU expression of HGDL's parallel local-optimizer
+        This is the device expression of HGDL's parallel local-optimizer
         epochs (SURVEY.md §2c item 4): one batched program instead of
         pop_size sequential optimizers.  The compiled runner is cached per
         (objective identity, epochs, lr, shapes) — bounds travel as

@@ -3,7 +3,7 @@
 1394-line fork of the GP class where the latent coordinates live inside the
 hyperparameter vector; not packaged in the reference wheel either).
 
-TPU-first formulation: the latent coordinates ARE parameters.  The whole
+GPU-first formulation: the latent coordinates ARE parameters.  The whole
 objective — kernel assembly over the latent X, Cholesky, the multi-output
 marginal likelihood — is one jitted ``jax.value_and_grad`` program over
 (X, hyperparameters, noise).  The reference's dev version threads
@@ -16,7 +16,7 @@ Surface parity with the reference fork (dev/gplvm.py:419 ``train`` dispatch,
 at latent coordinates):
 
 * ``train(method=...)`` dispatches ``adam`` (joint latents+hps, the
-  TPU-first default), ``local`` (joint L-BFGS-B on the same jitted
+  accelerator-first default), ``local`` (joint L-BFGS-B on the same jitted
   value_and_grad), ``mcmc`` (adaptive-Metropolis over the hyperparameter
   vector via :class:`~fvgp_tpu.models.gp_mcmc.gpMCMC`, updating
   ``mcmc_info``), or a user callable.

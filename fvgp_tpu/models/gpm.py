@@ -4,7 +4,7 @@ whose coherent core is the multi-output trace-form marginal likelihood
 ``-(0.5·tr(KV⁻¹YYᵀ)) - (d/2)·log|KV| - (nd/2)·log 2π``; the rest of that
 file is a commented-out sketch).
 
-TPU-first formulation: the manifold is a trainable linear embedding
+Accelerator-first formulation: the manifold is a trainable linear embedding
 ``z = x @ W`` (D → L) — the GP lives on the L-dimensional manifold
 coordinates, all outputs share one kernel there, and the whole objective
 (embedding, kernel assembly, Cholesky, trace-form LML) is ONE jitted

@@ -1,4 +1,4 @@
-"""Dense linear algebra on device — the TPU replacement for the reference's
+"""Dense linear algebra on device — the GPU replacement for the reference's
 scipy/LAPACK layer (/root/reference/fvgp/gp_lin_alg.py:237-360, :1310-1477,
 :1484-1700).
 
@@ -7,7 +7,7 @@ dtype is whatever the caller hands in (config.linalg_dtype decides upstream).
 Rank-n updates are formulated as *blocked trailing updates* — two triangular
 solves and one Cholesky of the new block, all matmul-shaped — instead of the
 reference's sequential rank-1 loop (gp_lin_alg.py:1466-1477), which is
-latency-bound and hostile to the MXU.
+latency-bound and hostile to the matrix units.
 """
 
 import functools
@@ -137,7 +137,7 @@ def _chol_append(L11, B, C):
     """Extend the factor of A to the factor of [[A, B], [Bᵀ, C]].
 
     L21 = (L11⁻¹ B)ᵀ, L22 = chol(C - L21 L21ᵀ): two triangular solves and a
-    small Cholesky — all MXU work, no sequential rank-1 sweeps
+    small Cholesky — all matmul work, no sequential rank-1 sweeps
     (replaces ref gp_lin_alg.py:1310-1477).
     """
     S = solve_triangular(L11, B, lower=True)           # (n_old, n_new)

@@ -1,7 +1,7 @@
 """Matrix-free Krylov solvers — CG / MINRES / block-CG as `lax.while_loop`
 programs over an abstract matvec.
 
-TPU replacement for the reference's scipy.sparse.linalg cg/minres calls
+Device replacement for the reference's scipy.sparse.linalg cg/minres calls
 (/root/reference/fvgp/gp_lin_alg.py:1184-1291) and its pure-Python block CG
 (:1024-1080).
 

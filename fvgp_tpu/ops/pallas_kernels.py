@@ -1,32 +1,19 @@
-"""Pallas TPU kernels for the hot ops of the covariance path.
+"""Pallas kernel for the committed-state block-sparse SpMM (Triton route).
 
-1. ``chunked_spmm`` — the production block-sparse SpMM for the CG/mBCG
-   hot loop when X and the output fit VMEM (see ``chunked_spmm_fits``).
-   One grid step processes C tiles with X and the accumulator RESIDENT in
-   VMEM, so HBM traffic is exactly the tile stream: no (T, B, k) gather /
-   product intermediates exist (the XLA formulation materializes both).
-   Measured on the v5e bench shapes (T=4096, B=256, k=17, bf16 tiles):
-   0.84 ms vs 1.12 ms XLA — 1.33x; at B=128 both run at the MXU
-   weight-pass floor (~136 ns/tile) and the kernel wins 1.22x.
-   Differentiable via custom VJP (XLA-einsum backward — the tile-cotangent
-   IS a (T, B, B) batched outer product, so there is nothing to fuse).
+``row_block_spmm`` computes ``Y = A @ X`` for a block-sparse ``A`` held as a
+ROW-SORTED tile list (CSR over point blocks).  One program owns one
+(row block, k-block) pair (and one 128-row half of it where B = 256): it
+walks that row's tiles through the CSR row offsets, loads each tile and the
+X block it multiplies by column index, accumulates in f32 registers and
+writes its output block once.  So
+no gathered copy of X, no per-tile product and no scatter-add ever touches
+device memory: the traffic is the tile stream plus the X blocks the tiles
+reference.  The XLA formulation (``sparse_lml._spmv_scan``) materialises the
+gathered X and the f32 per-tile product per scan slice and scatter-adds it.
 
-2. ``block_spmv`` — earlier one-tile-per-step variant (kept as verified
-   infrastructure; the per-step fixed cost makes it ~1.3x slower than XLA).
-
-3. ``dense_covariance`` — fused anisotropic-distance + kernel-polynomial
-   evaluation writing K tile by tile, never materializing the (B, B, D)
-   broadcast in HBM.  XLA's fusion currently wins on this op (4.4 ms vs
-   21 ms at 8k²); kept non-default.
-
-All kernels fall back to ``interpret=True`` off-TPU so the same code path
-is exercised by the CPU test suite.  Hardware findings that shape the code:
-Mosaic on this libtpu rejects 64-bit lowering (kernels trace under an
-x64-off scope); scalar-prefetch index arrays live in SMEM and overflow it
-beyond ~100k tiles (chunked_spmm therefore feeds rows/cols as (8, C) SMEM
-blocks); the MXU's default bf16 matmul pass cannot be used for distance
-matrices (0.25 absolute distance error on the diagonal — kernels use exact
-per-dimension differences instead).
+The kernel runs compiled for the GPU, and in interpret mode on the CPU
+backend (the test suite).  Any other backend raises: a kernel never silently
+falls back to the interpreter on an accelerator.
 """
 
 import functools
@@ -35,447 +22,133 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-__all__ = ["block_spmv", "dense_covariance", "chunked_spmm",
-           "chunked_spmm_fits", "row_aligned_schedule", "row_chunk_sums"]
+__all__ = ["row_offsets", "row_block_spmm", "k_blocking", "supports"]
 
 
 def _interpret():
-    return jax.default_backend() != "tpu"
+    """Interpret mode on the CPU backend only (tests); compiled on the GPU;
+    anything else is an error rather than a hidden interpreter run."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(f"row_block_spmm has no kernel for backend {backend!r} "
+                       "(compiled on gpu, interpret mode on cpu)")
 
 
-def _x32_scope():
-    """Trace pallas kernels with x64 disabled ON TPU: under global x64,
-    weak-typed in-kernel scalars lower to 64-bit ops that this libtpu's
-    Mosaic cannot legalize ('failed to legalize func.return').  TPU
-    operands are f32/int32, so semantics are unchanged.  Interpret mode
-    (CPU tests) keeps the global x64 setting — mixing the scope with f64
-    refs would silently downcast stores."""
-    import contextlib
-    if _interpret():
-        return contextlib.nullcontext()
-    return jax.enable_x64(False)
+def row_offsets(rows, nb):
+    """Host helper: CSR row offsets ``(nb + 1,)`` int32 of a row-sorted tile
+    schedule.  Sentinel entries (``row == nb``, bucket padding) trail the
+    real tiles and fall outside every row's range."""
+    rows = np.asarray(rows)
+    if len(rows) > 1 and np.any(np.diff(rows) < 0):
+        raise ValueError("row_offsets needs a row-sorted tile schedule")
+    return np.searchsorted(rows, np.arange(nb + 1), side="left") \
+        .astype(np.int32)
 
 
-# ---------------------------------------------------------------------------
-# block-sparse matvec
-# ---------------------------------------------------------------------------
-
-def _spmv_kernel(rows_ref, cols_ref, tiles_ref, x_ref, out_ref):
-    t = pl.program_id(0)
-    row = rows_ref[t]
-    first = t == 0
-    prev_row = rows_ref[jnp.maximum(t - 1, 0)]
-    new_block = jnp.logical_or(first, row != prev_row)
-
-    prod = jnp.dot(tiles_ref[0], x_ref[0], preferred_element_type=out_ref.dtype)
-
-    @pl.when(new_block)
-    def _():
-        out_ref[0] = prod
-
-    @pl.when(jnp.logical_not(new_block))
-    def _():
-        out_ref[0] = out_ref[0] + prod
+def supports(B):
+    """True when the kernel can take block size ``B``: a power of two of at
+    least 16 (Triton block shapes are powers of two, and its dot needs
+    every operand dimension >= 16)."""
+    B = int(B)
+    return B >= 16 and B & (B - 1) == 0
 
 
-@functools.partial(jax.jit, static_argnames=("nb", "block_size"))
-def _block_spmv_call(rows, cols, tiles, Xb, nb, block_size):
+def k_blocking(k, itemsize):
+    """(kb, k_pad): the k-block width (a power of two in [16, 64]; the
+    Triton dot needs >= 16) and k padded up to a multiple of it.  f32 tiles
+    cap kb at 32 so the pipeline stages of tile and X operands stay well
+    inside a block's shared memory."""
+    cap = 64 if itemsize <= 2 else 32
+    kb = min(cap, max(16, 1 << (max(int(k), 1) - 1).bit_length()))
+    return kb, -(-int(k) // kb) * kb
+
+
+def _row_block_kernel(rowptr_ref, cols_ref, tiles_ref, x_ref, out_ref, *,
+                      nb, bm, bk, nk, precision):
+    r = pl.program_id(1)                      # row sub-block of the tile
+    i = pl.program_id(2)                      # row block
+    start = rowptr_ref[i]
+    end = rowptr_ref[i + 1]
+
+    def body(s, acc):
+        # one step = one (tile, contraction sub-block) pair, so B > 128
+        # tiles stream in (bm, bk) pieces instead of whole
+        t = s // nk
+        kk = s % nk
+        c = jnp.minimum(cols_ref[t], nb - 1)  # sentinel cols: zero tiles
+        a = tiles_ref[t, pl.ds(r * bm, bm), pl.ds(kk * bk, bk)]
+        x = x_ref[c, pl.ds(kk * bk, bk), :]   # (bk, kb) of this k-block
+        return acc + jnp.dot(a, x, preferred_element_type=jnp.float32,
+                             precision=precision)
+
+    kb = out_ref.shape[-1]
+    acc = jax.lax.fori_loop(start * nk, end * nk, body,
+                            jnp.zeros((bm, kb), jnp.float32))
+    out_ref[...] = acc
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("nb", "B", "kb", "interpret", "sub"))
+def _row_block_call(rowptr, cols, tiles, Xb, nb, B, kb, interpret, sub=128):
     T = tiles.shape[0]
-    k = Xb.shape[2]
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(T,),
-        in_specs=[
-            pl.BlockSpec((1, block_size, block_size),
-                         lambda t, rows, cols: (t, 0, 0)),
-            pl.BlockSpec((1, block_size, k),
-                         lambda t, rows, cols: (cols[t], 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, block_size, k),
-                               lambda t, rows, cols: (rows[t], 0, 0)),
-    )
-    out = pl.pallas_call(
-        _spmv_kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((nb, block_size, k), Xb.dtype),
-        interpret=_interpret(),
-    )(rows, cols, tiles, Xb)
-    return out
-
-
-def block_spmv(rows, cols, tiles, X, nb, block_size, n=None):
-    """y = A @ X for a row-major-sorted tile list.
-
-    Whole-row blocks missing from the tile list come back as whatever the
-    kernel never wrote — the wrapper zero-fills them by masking against the
-    set of present rows.
-    """
-    X = jnp.asarray(X)
-    squeeze = X.ndim == 1
-    if squeeze:
-        X = X[:, None]
-    n_pad = nb * block_size
-    k = X.shape[1]
-    Xp = jnp.zeros((n_pad, k), X.dtype).at[: X.shape[0]].set(X)
-    Xb = Xp.reshape(nb, block_size, k)
-    rows = jnp.minimum(jnp.asarray(rows, jnp.int32), nb - 1)
-    cols = jnp.minimum(jnp.asarray(cols, jnp.int32), nb - 1)
-    with _x32_scope():
-        out = _block_spmv_call(rows, cols, tiles, Xb, nb, block_size)
-    # zero rows that own no tile (uninitialized output blocks)
-    present = jnp.zeros((nb,), jnp.bool_).at[rows].set(True)
-    out = jnp.where(present[:, None, None], out, 0.0)
-    out = out.reshape(n_pad, k)[: X.shape[0] if n is None else n]
-    return out[:, 0] if squeeze else out
-
-
-# ---------------------------------------------------------------------------
-# chunked SpMM — the production matvec kernel (X/out resident in VMEM)
-# ---------------------------------------------------------------------------
-
-_VMEM_BUDGET = 96 * 1024 * 1024       # of the chip's 128 MB VMEM
-
-
-def chunked_spmm_fits(T, nb, B, k, tile_itemsize=2, C=8):
-    """True when X + accumulator + a double-buffered tile chunk fit VMEM
-    and the (bucket-padded) tile count divides into (8, C) SMEM blocks.
-
-    VMEM windows are physically padded to the (8, 128) register tile, so
-    the MINOR dimension of the (nb, B, k) X/out windows costs
-    ``ceil(k/128)*128`` lanes regardless of the logical k — a k=1 matvec
-    at nb~8000 is a 512 MB window, not 4 MB (this gate once used logical
-    sizes and compiled such a window straight into a VMEM OOM on the
-    N=1M posterior path)."""
-    k_pad = -(-int(k) // 128) * 128
-    b_pad = -(-int(B) // 8) * 8
-    vmem = 2 * nb * b_pad * k_pad * 4 + 2 * C * b_pad * b_pad * tile_itemsize
-    return vmem <= _VMEM_BUDGET and T % (8 * C) == 0
-
-
-def _chunked_kernel(C):
-    def kernel(rows_ref, cols_ref, tiles_ref, x_ref, out_ref):
-        s = pl.program_id(0)
-        r = s % 8
-
-        @pl.when(s == 0)
-        def _():
-            out_ref[...] = jnp.zeros_like(out_ref)
-
-        def body(c, _):
-            row = rows_ref[r, c]
-            col = cols_ref[r, c]
-            prod = jnp.dot(tiles_ref[c], x_ref[col],
-                           preferred_element_type=jnp.float32)
-            out_ref[row] = out_ref[row] + prod
-            return 0
-
-        jax.lax.fori_loop(0, C, body, 0)
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("nb", "B", "k", "C"))
-def _chunked_spmm_call(rows2, cols2, tiles, Xb, nb, B, k, C):
-    T = tiles.shape[0]
+    k_pad = Xb.shape[2]
+    bm = bk = min(B, sub)
+    f32 = tiles.dtype.itemsize >= 4
+    # f32 tiles compiled: three TF32 tensor-core passes (f32-level
+    # accuracy); a plain f32 dot runs without the tensor cores.  The
+    # interpreter and bf16 tiles take the exact product.
+    precision = (jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3
+                 if f32 and not interpret else jax.lax.Precision.HIGHEST)
+    # grid: k-block fastest, so the programs that share a row's tiles run
+    # side by side and read them through L2 once
     return pl.pallas_call(
-        _chunked_kernel(C),
-        grid=(T // C,),
+        functools.partial(_row_block_kernel, nb=nb, bm=bm, bk=bk,
+                          nk=B // bk, precision=precision),
+        grid=(k_pad // kb, B // bm, nb),
         in_specs=[
-            # index arrays as (8, C) SMEM blocks: scalar prefetch would put
-            # the whole (T,) array in SMEM, which overflows beyond ~100k
-            # tiles
-            pl.BlockSpec((8, C), lambda s: (s // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((8, C), lambda s: (s // 8, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((C, B, B), lambda s: (s, 0, 0)),
-            pl.BlockSpec((nb, B, k), lambda s: (0, 0, 0)),
+            pl.BlockSpec((nb + 1,), lambda j, r, i: (0,)),
+            pl.BlockSpec((T,), lambda j, r, i: (0,)),
+            pl.BlockSpec((T, B, B), lambda j, r, i: (0, 0, 0)),
+            pl.BlockSpec((nb, B, kb), lambda j, r, i: (0, 0, j)),
         ],
-        out_specs=pl.BlockSpec((nb, B, k), lambda s: (0, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((nb, B, k), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * T * B * B * k,
-            bytes_accessed=T * B * B * tiles.dtype.itemsize,
-            transcendentals=0),
-        interpret=_interpret(),
-    )(rows2, cols2, tiles, Xb)
+        out_specs=pl.BlockSpec((None, bm, kb), lambda j, r, i: (i, r, j)),
+        out_shape=jax.ShapeDtypeStruct((nb, B, k_pad), jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4,
+                                             num_stages=2 if f32 else 3),
+        interpret=interpret,
+        name="row_block_spmm",
+    )(rowptr, cols, tiles, Xb)
 
 
-@functools.lru_cache(maxsize=32)
-def _chunked_spmm_factory(nb, B, C, mv_dtype=None):
-    """Differentiable chunked SpMM bound to a (nb, B) grid.
+def row_block_spmm(rowptr, cols, tiles, X, nb, B, mv_dtype=None):
+    """``Y = A @ X`` (``(nb*B, k)``, X's dtype) for a row-sorted tile list.
 
-    Forward is the Pallas kernel; backward is the plain-XLA einsum pair
-    (the tile cotangent IS a (T, B, B) batched outer product written to
-    HBM, so a kernel could not reduce its traffic):
-
-        tiles_bar[t] = ybar[rows[t]] · X[cols[t]]ᵀ
-        X_bar       = Aᵀ ybar  (segment-sum over cols)
-    """
-
-    def _fwd_impl(rows, cols, tiles, X):
-        k = X.shape[1]
-        if mv_dtype is not None:
-            tiles = tiles.astype(mv_dtype)
-            Xc = X.astype(mv_dtype)
-        else:
-            Xc = X
-        # (T//C, C) row-major layout; the SMEM (8, C) blocking is done by
-        # the BlockSpec index map, not by any regrouping here
-        rows2 = rows.reshape(-1, C)
-        cols2 = cols.reshape(-1, C)
-        with _x32_scope():
-            out = _chunked_spmm_call(rows2, cols2, tiles,
-                                     Xc.reshape(nb, B, k), nb, B, k, C)
-        return out.reshape(nb * B, k).astype(X.dtype)
-
-    @jax.custom_vjp
-    def spmm(rows, cols, tiles, X):
-        return _fwd_impl(rows, cols, tiles, X)
-
-    def spmm_fwd(rows, cols, tiles, X):
-        return _fwd_impl(rows, cols, tiles, X), (rows, cols, tiles, X)
-
-    def spmm_bwd(res, ybar):
-        rows, cols, tiles, X = res
-        k = X.shape[1]
-        acc = X.dtype if X.dtype == jnp.float64 else jnp.float32
-        Yb = ybar.reshape(nb, B, k)
-        Xb = X.reshape(nb, B, k)
-        if mv_dtype is not None:
-            Yc, Xc, tc = (Yb.astype(mv_dtype), Xb.astype(mv_dtype),
-                          tiles.astype(mv_dtype))
-        else:
-            Yc, Xc, tc = Yb, Xb, tiles
-        tiles_bar = jnp.einsum("tik,tjk->tij", Yc[rows], Xc[cols],
-                               preferred_element_type=acc)
-        contrib = jnp.einsum("tij,tik->tjk", tc, Yc[rows],
-                             preferred_element_type=acc)
-        Xbar = jax.ops.segment_sum(contrib, cols, num_segments=nb)
-        return (np.zeros(rows.shape, jax.dtypes.float0),
-                np.zeros(cols.shape, jax.dtypes.float0),
-                tiles_bar.astype(tiles.dtype),
-                Xbar.reshape(nb * B, k).astype(X.dtype))
-
-    spmm.defvjp(spmm_fwd, spmm_bwd)
-    return spmm
-
-
-def chunked_spmm(rows, cols, tiles, X, nb, B, mv_dtype=None, C=8):
-    """y = A @ X via the VMEM-resident kernel (same contract as the XLA
-    ``_spmv``: clamped sentinel indices must carry zero tiles).  Callers
-    check :func:`chunked_spmm_fits` first."""
-    return _chunked_spmm_factory(nb, B, C, mv_dtype)(rows, cols, tiles, X)
-
-
-# ---------------------------------------------------------------------------
-# row-aligned chunked SpMM — X in HBM (the wide/committed-state matvec)
-# ---------------------------------------------------------------------------
-#
-# The VMEM-resident chunked_spmm needs X AND the accumulator on-chip, which
-# caps it at nb*B*k ~ a few MB — useless at N=1M where X alone is GBs.  The
-# XLA fallback (_spmv_scan) pays a (chunk, B, c) gather copy, a (chunk, B, c)
-# f32 product round-trip to HBM, and a full-size scatter-add — ~2x the
-# unavoidable traffic.  The fused path removes the product round-trip and
-# shrinks the scatter C-fold:
-#
-# * the schedule is ROW-ALIGNED (``row_aligned_schedule``): each C-tile
-#   chunk's tiles all belong to ONE output row block (rows sorted, each
-#   row's tile list padded to a multiple of C with zero sentinel tiles);
-# * ``row_chunk_sums`` streams the tiles and the pre-gathered X through
-#   VMEM and emits one (B, k) f32 partial PER CHUNK — the (T, B, k)
-#   product never exists in HBM;
-# * the caller scatter-adds the C×-smaller, row-sorted chunk sums.
-#
-# The committed-state solver runs this inside a lax.scan over schedule
-# slices so the gathered X is bounded to one slice.
-
-
-def row_aligned_schedule(rows, cols, nb, C=8, chunk_bucket=256):
-    """Host helper: regroup a row-sorted tile schedule so every C tiles
-    share one output row block.
-
-    Returns ``(rows_p, cols_p, rowsc, n_chunks)``: per-tile indices padded
-    per row to a multiple of ``C`` (sentinel ``col == nb`` marks padding —
-    the assembler zeroes those tiles), and the per-chunk output row index
-    ``rowsc`` (sentinel ``nb`` on trailing bucket-padding chunks, which the
-    kernel routes to a dummy output block).  ``n_chunks`` is bucketed to
-    multiples of ``chunk_bucket`` so jit caches survive occupancy moves."""
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    counts = np.bincount(rows, minlength=nb)
-    padded = -(-counts // C) * C
-    total = int(padded.sum())
-    n_chunks = -(-max(total // C, 1) // chunk_bucket) * chunk_bucket
-    T_pad = n_chunks * C
-    rows_p = np.full(T_pad, nb, np.int32)
-    cols_p = np.full(T_pad, nb, np.int32)
-    starts = np.zeros(nb + 1, np.int64)
-    np.cumsum(padded, out=starts[1:])
-    # rows are sorted: each row's tiles are one contiguous slice
-    src_starts = np.zeros(nb + 1, np.int64)
-    np.cumsum(counts, out=src_starts[1:])
-    idx = np.arange(len(rows))
-    dst = starts[rows] + (idx - src_starts[rows])
-    rows_p[dst] = rows
-    cols_p[dst] = cols
-    # padded in-row slots keep the row (alignment) with a sentinel col
-    pad_rows = np.repeat(np.arange(nb, dtype=np.int32),
-                         (padded - counts).astype(np.int64))
-    pad_dst = []
-    off = starts[:-1] + counts
-    for r, extra in zip(*np.unique(pad_rows, return_counts=True)):
-        pad_dst.append(np.arange(off[r], off[r] + extra))
-    if pad_dst:
-        pad_dst = np.concatenate(pad_dst)
-        rows_p[pad_dst] = pad_rows
-        cols_p[pad_dst] = nb
-    rowsc = np.full(n_chunks, nb, np.int32)
-    rowsc[: total // C] = np.repeat(np.arange(nb, dtype=np.int32),
-                                    (padded // C).astype(np.int64))
-    return rows_p, cols_p, rowsc, n_chunks
-
-
-def _chunk_sums_kernel(C):
-    def kernel(tiles_ref, xg_ref, out_ref):
-        acc = jnp.dot(tiles_ref[0], xg_ref[0],
-                      preferred_element_type=jnp.float32)
-        for j in range(1, C):
-            acc = acc + jnp.dot(tiles_ref[j], xg_ref[j],
-                                preferred_element_type=jnp.float32)
-        out_ref[0] = acc
-
-    return kernel
-
-
-@functools.partial(jax.jit, static_argnames=("B", "k", "C"))
-def _chunk_sums_call(tiles, Xg, B, k, C):
-    n_chunks = tiles.shape[0] // C
-    return pl.pallas_call(
-        _chunk_sums_kernel(C),
-        grid=(n_chunks,),
-        in_specs=[
-            pl.BlockSpec((C, B, B), lambda s: (s, 0, 0)),
-            pl.BlockSpec((C, B, k), lambda s: (s, 0, 0)),
-        ],
-        out_specs=pl.BlockSpec((1, B, k), lambda s: (s, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n_chunks, B, k), jnp.float32),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * tiles.shape[0] * B * B * k,
-            bytes_accessed=(tiles.shape[0] * B
-                            * (B * tiles.dtype.itemsize
-                               + k * Xg.dtype.itemsize)
-                            + n_chunks * B * k * 4),
-            transcendentals=0),
-        interpret=_interpret(),
-    )(tiles, Xg)
-
-
-def row_chunk_sums(tiles, Xg, B, C=8):
-    """Per-chunk partial products ``sum_j tiles[s*C+j] @ Xg[s*C+j]`` for a
-    row-aligned schedule slice — tiles and the pre-gathered X stream
-    through VMEM; the (C·M, B, k) f32 product NEVER round-trips HBM (the
-    XLA formulation materializes it).  The caller scatter-adds the
-    C×-smaller chunk sums into the row blocks (sorted indices)."""
-    k = Xg.shape[2]
-    with _x32_scope():
-        return _chunk_sums_call(tiles, Xg, B, k, C)
-
-
-# ---------------------------------------------------------------------------
-# fused dense covariance assembly
-# ---------------------------------------------------------------------------
-
-_SQRT3 = 1.7320508075688772
-
-
-def _safe_dist(d2):
-    pos = d2 > 0.0
-    return jnp.where(pos, jnp.sqrt(jnp.where(pos, d2, 1.0)), 0.0)
-
-
-def _cov_body(poly, ndim):
-    """Kernel body: whitened distance by exact per-dimension outer
-    differences (2-D broadcasts on the VPU) + kernel polynomial.
-
-    Not the matmul expansion: the MXU's default bf16 pass loses ~8 mantissa
-    bits, which turned diagonal distances of 0 into ~0.25 — a 30% kernel
-    error.  D is static and tiny for GP index sets, so the unrolled
-    difference loop is cheap and exact.  (Mosaic also rejects the
-    (B, B, D) broadcast layout, hence 2-D ops only.)
-    """
-
-    def body(z1_ref, z2t_ref, var_ref, out_ref):
-        z1 = z1_ref[...]                 # (t, d) pre-whitened
-        z2t = z2t_ref[...]               # (d, t) pre-whitened, transposed
-        d2 = jnp.zeros(out_ref.shape, out_ref.dtype)
-        for k in range(ndim):
-            diff = z1[:, k:k + 1] - z2t[k:k + 1, :]
-            d2 = d2 + diff * diff
-        d = _safe_dist(d2)
-        out_ref[...] = var_ref[0, 0] * poly(d)
-
-    return body
-
-
-def _matern32_poly(d):
-    a = _SQRT3 * d
-    return (1.0 + a) * jnp.exp(-a)
-
-
-def _wendland_poly(d):
-    d = jnp.minimum(d, 1.0)
-    return (1.0 - d) ** 8 * (32.0 * d ** 3 + 25.0 * d ** 2 + 8.0 * d + 1.0)
-
-
-_COV_POLYS = {"matern32": _matern32_poly, "wendland": _wendland_poly}
-
-
-@functools.partial(jax.jit, static_argnames=("kind", "tile"))
-def _dense_cov_call(z1, z2t, var, kind, tile):
-    n1, d = z1.shape
-    n2 = z2t.shape[1]
-    body = _cov_body(_COV_POLYS[kind], d)
-    grid = (pl.cdiv(n1, tile), pl.cdiv(n2, tile))
-    return pl.pallas_call(
-        body,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((tile, d), lambda i, j: (i, 0)),
-            pl.BlockSpec((d, tile), lambda i, j: (0, j)),
-            pl.BlockSpec((1, 1), lambda i, j: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=pl.BlockSpec((tile, tile), lambda i, j: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((n1, n2), z1.dtype),
-        interpret=_interpret(),
-    )(z1, z2t, var)
-
-
-def dense_covariance(x1, x2, hyperparameters, kind="matern32", tile=256):
-    """K = k(x1, x2) assembled tile-by-tile with whitening, distance, and
-    kernel polynomial fused in VMEM.  hps = [signal variance, l_1..l_D]."""
-    x1 = jnp.atleast_2d(jnp.asarray(x1))
-    x2 = jnp.atleast_2d(jnp.asarray(x2))
-    hps = jnp.asarray(hyperparameters, dtype=x1.dtype)
-    ls = hps[1:1 + x1.shape[1]]
-    z1 = x1 / ls
-    z2t = (x2 / ls).T
-    var = hps[:1].reshape(1, 1)
-    n1, n2 = x1.shape[0], x2.shape[0]
-    t = min(tile, 256)
-    p1 = -(-n1 // t) * t
-    p2 = -(-n2 // t) * t
-    z1p = jnp.zeros((p1, x1.shape[1]), x1.dtype).at[:n1].set(z1)
-    z2tp = jnp.zeros((x2.shape[1], p2), x2.dtype).at[:, :n2].set(z2t)
-    if z1p.dtype == jnp.float64 and not _interpret():
-        # the Mosaic path is f32; f64 interpret-mode (CPU tests) keeps full
-        # precision
-        z1p = z1p.astype(jnp.float32)
-        z2tp = z2tp.astype(jnp.float32)
-        var = var.astype(jnp.float32)
-    with _x32_scope():
-        K = _dense_cov_call(z1p, z2tp, var, kind, t)
-    return K[:n1, :n2]
+    ``rowptr`` (nb+1,) int32 CSR offsets (:func:`row_offsets`); ``cols``
+    (T,) column blocks, sentinel ``nb`` allowed where the tile is zero;
+    ``tiles`` (T, B, B) in f32 or bf16 (``mv_dtype`` casts them, as in the
+    XLA SpMMs).  X is cast to the tile dtype, so bf16 tiles multiply bf16
+    operands; accumulation is f32.  Not differentiable: it serves the
+    committed-state posterior solve only."""
+    if mv_dtype is not None:
+        tiles = tiles.astype(mv_dtype)
+    if tiles.dtype not in (jnp.float32, jnp.bfloat16):
+        raise ValueError("row_block_spmm takes f32 or bf16 tiles, got "
+                         f"{tiles.dtype}")
+    if not supports(B):
+        raise ValueError(f"row_block_spmm needs a power-of-two block size "
+                         f">= 16, got {B}")
+    n_pad, k = X.shape
+    kb, k_pad = k_blocking(k, tiles.dtype.itemsize)
+    Xc = X.astype(tiles.dtype)
+    if k_pad != k:
+        Xc = jnp.pad(Xc, ((0, 0), (0, k_pad - k)))
+    out = _row_block_call(jnp.asarray(rowptr, jnp.int32),
+                          jnp.asarray(cols, jnp.int32), tiles,
+                          Xc.reshape(nb, B, k_pad), nb, B, kb, _interpret())
+    return out.reshape(n_pad, k_pad)[:, :k].astype(X.dtype)

@@ -1,8 +1,8 @@
-"""Batched preconditioners — the TPU-idiomatic replacement for the
+"""Batched preconditioners — the accelerator-friendly replacement for the
 reference's ILU / incomplete-Cholesky / AMG preconditioner zoo
 (/root/reference/fvgp/gp_lin_alg.py:604-935).
 
-Sequential sparse factorizations (ILU, IC, AMG setup) do not map to the MXU.
+Sequential sparse factorizations (ILU, IC, AMG setup) do not map to matmul units.
 Three operators that do, in increasing strength:
 
 * **block-Jacobi** — batched Cholesky of the (nb, B, B) diagonal blocks;

@@ -1,12 +1,12 @@
 """Stochastic Lanczos quadrature log-determinant.
 
-TPU-native replacement for the `imate` C++/CUDA SLQ backend the reference
+Device-native replacement for the `imate` C++/CUDA SLQ backend the reference
 hard-requires for gp2Scale (/root/reference/fvgp/gp_lin_alg.py:1083-1181).
 
 Estimator: logdet(A) = tr(log A) = E_z[ zᵀ log(A) z ] for Rademacher z.
 Each probe runs an m-step Lanczos recursion (a `lax.scan` of matvecs with
 full reorthogonalization — m is tiny, ~20, so the reorth GEMMs are cheap on
-the MXU), then quadrature through `eigh` of the m×m tridiagonal.  Probes are
+matmul units), then quadrature through `eigh` of the m×m tridiagonal.  Probes are
 vmapped, so one kernel launch carries a whole probe batch.
 
 The estimator's own variance is reported exactly as the reference surfaces

@@ -94,7 +94,7 @@ def tile_maxabs(kernel_fn, xb, mask, rows, cols, hps):
 
 def _spmv(rows, cols, tiles, X, nb, B, mv_dtype=None):
     """Batched-tile SpMM.  ``mv_dtype=bfloat16`` streams the tiles at half
-    the HBM traffic with f32 MXU accumulation — the solve is
+    the HBM traffic with f32 accumulation — the solve is
     bandwidth-bound, so this is ~2x on the matvec path at a ~1e-3 relative
     residual floor (fine for the stochastic MCMC/BO training regime)."""
     n_pad = nb * B
@@ -281,11 +281,12 @@ def _spmv_scan(rows, cols, tiles, X, nb, B, mv_dtype=None):
             t = t.astype(mv_dtype)
         prod = jnp.einsum("tij,tjk->tik", t, Xb[jnp.minimum(cc, nb - 1)],
                           preferred_element_type=acc_dt)
-        # rows are sorted (candidate enumeration order; sentinels clamp to
-        # the last block at the tail) — the sorted-scatter lowering saves
-        # the general scatter's reordering pass on TPU
-        return acc.at[r].add(prod, mode="drop",
-                             indices_are_sorted=True), None
+        # no indices_are_sorted promise, although the rows are sorted: on
+        # an H100, XLA's sorted-scatter lowering of (1024, 128, 512) f32
+        # slices into a (391, 128, 512) accumulator compiled for ~6 min and
+        # then failed to launch (CUDA_ERROR_INVALID_VALUE); the general
+        # scatter compiles in ~1 s and runs (tests/test_pallas_kernels.py)
+        return acc.at[r].add(prod, mode="drop"), None
 
     acc, _ = jax.lax.scan(
         body, jnp.zeros((nb, B, c), acc_dt),
@@ -294,50 +295,10 @@ def _spmv_scan(rows, cols, tiles, X, nb, B, mv_dtype=None):
     return acc.reshape(nb * B, c).astype(X.dtype)
 
 
-def _spmv_scan_fused(rowsc, cols_p, tiles, X, nb, B, C=8, mv_dtype=None):
-    """Row-aligned fused SpMM for wide right-hand sides: lax.scan over
-    schedule slices; per slice, XLA gathers the referenced X blocks and the
-    Pallas ``row_chunk_sums`` kernel reduces each C-tile chunk to ONE
-    (B, c) partial — the (T, B, c) product never exists in HBM and the
-    scatter-add handles C× fewer rows (sorted indices).  ~2× the
-    ``_spmv_scan`` traffic model at N=1M widths.
-
-    ``rowsc`` (n_chunks,) per-chunk output rows (sentinel == nb dropped);
-    ``cols_p`` (n_chunks*C,) per-tile column blocks (sentinel == nb —
-    their tiles are zero, the gather clamp is harmless).  f32/bf16 only
-    (the kernel accumulates f32); callers keep the plain scan for f64."""
-    from .pallas_kernels import row_chunk_sums
-
-    acc_dt = jnp.float32
-    Xc = X.astype(mv_dtype) if mv_dtype is not None else X
-    c = X.shape[1]
-    Xb = Xc.reshape(nb, B, c)
-    n_chunks = int(rowsc.shape[0])
-    # slice so the gathered X stays ~256 MB
-    per_chunk = C * B * c * Xb.dtype.itemsize
-    target = max(32, (256 << 20) // max(per_chunk, 1))
-    M = _assembly_chunk(n_chunks, target=min(target, 4096))
-
-    def body(acc, args):
-        rc, cols_s, tiles_s = args
-        xg = Xb[jnp.minimum(cols_s, nb - 1)]
-        sums = row_chunk_sums(tiles_s, xg, B, C=C)
-        return acc.at[rc].add(sums, mode="drop",
-                              indices_are_sorted=True), None
-
-    acc, _ = jax.lax.scan(
-        body, jnp.zeros((nb, B, c), acc_dt),
-        (rowsc.reshape(-1, M), cols_p.reshape(-1, M * C),
-         tiles.reshape(-1, M * C, B, B)))
-    return acc.reshape(nb * B, c).astype(X.dtype)
-
-
 def _spmv_for(nb, B, mesh, mv_dtype=None, halo_S=None):
     """The SpMM for this mesh: row-partitioned shard_map when a (>1 device)
     mesh is given (with halo exchange when a ``halo_S`` plan is supplied);
-    on a single TPU the VMEM-resident Pallas kernel when the shapes fit
-    (ops/pallas_kernels.chunked_spmm — 1.2-1.33x the XLA formulation, see
-    docs/source/roofline.md); the XLA segment-sum otherwise."""
+    the XLA segment-sum otherwise."""
     if mesh is not None:
         from ..parallel.mesh import tile_device_count
         if tile_device_count(mesh) > 1:
@@ -349,21 +310,7 @@ def _spmv_for(nb, B, mesh, mv_dtype=None, halo_S=None):
                                           mv_dtype=mv_dtype)
             return _rowpart_spmv_factory(nb, B, mesh, mv_dtype=mv_dtype)
 
-    import os
-    use_pallas = os.environ.get("FVGP_TPU_PALLAS_SPMM", "1") != "0"
-
     def spmv(rows, cols, tiles, X):
-        # Mosaic rejects 64-bit lowering: f64 matvecs (x64 on TPU) must take
-        # the XLA path, mirroring _bsm_matmat's exclusion (block_sparse.py)
-        eff_dtype = jnp.dtype(mv_dtype) if mv_dtype is not None else X.dtype
-        if (use_pallas and jax.default_backend() == "tpu"
-                and eff_dtype != jnp.float64):
-            from .pallas_kernels import chunked_spmm, chunked_spmm_fits
-            isz = eff_dtype.itemsize if mv_dtype is not None \
-                else tiles.dtype.itemsize
-            if chunked_spmm_fits(tiles.shape[0], nb, B, X.shape[1], isz):
-                return chunked_spmm(rows, cols, tiles, X, nb, B,
-                                    mv_dtype=mv_dtype)
         return _spmv(rows, cols, tiles, X, nb, B, mv_dtype=mv_dtype)
 
     return spmv
@@ -405,7 +352,7 @@ def _diag_precond_blocks(kernel_fn, B, precond_width, hps, xb, mask,
     """Block-diagonal preconditioner from exact kernel blocks of
     ``precond_width`` point blocks each: one batched Cholesky + an
     explicit block inverse so every CG iteration is one batched matmul
-    — all MXU work (no gradient through the preconditioner: it only
+    — all matmul work (no gradient through the preconditioner: it only
     changes the iteration path, not the solution, so stop_gradient
     keeps the backward pass lean).
 
@@ -546,7 +493,7 @@ def _cg_fixed(matvec, Bmat, iters, M=None, tol=None, mv_dtype=None,
 def _block_apply(mats, X):
     """Batched block-diagonal apply: (nb', w, w) operator blocks on a flat
     (nb'*w, k) X — the preconditioner/Cholesky application shared by the
-    mBCG, implicit-CG, and width-grouped paths (one batched MXU matmul;
+    mBCG, implicit-CG, and width-grouped paths (one batched matmul;
     triangular solves here were an 11 ms/step hot-loop bottleneck)."""
     Xb = X.reshape(mats.shape[0], mats.shape[1], -1)
     z = jnp.einsum("rij,rjk->rik", mats, Xb,
@@ -1029,7 +976,7 @@ def _normalize_committed_precond(name):
 
 
 def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
-                          precond_width=1, cg_tol=None, row_chunk=None,
+                          precond_width=1, cg_tol=None, fused_spmm=False,
                           mesh=None, halo_S=None,
                           precond_type="block_jacobi", coarse_width=None):
     """Committed-state WIDE solve (K+V)⁻¹ RHS — two jittable programs:
@@ -1066,8 +1013,11 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     and ROW-SORTED (the scan-SpMM promises sorted scatter indices).
     Right-hand sides with many columns stream the tiles through
     ``_spmv_scan`` (the flat per-tile product would be tens of GB); narrow
-    ones keep the flat/Pallas path.  Padded rows carry unit noise and zero
-    RHS, so their solution is exactly zero.
+    ones keep the flat path.  ``fused_spmm=True`` runs every matvec through
+    the Pallas ``row_block_spmm`` kernel instead; ``solve``'s ``rows`` is
+    then the (nb+1,) CSR row offsets (ops/pallas_kernels.row_offsets) of
+    the row-sorted schedule.  Padded rows carry unit noise and zero RHS, so
+    their solution is exactly zero.
 
     MESH PATH (``mesh`` with > 1 device): the same collective design as the
     traced training step (the reference's pod-scale serving shape, ref
@@ -1082,8 +1032,9 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     halo exchange when a ``halo_S`` plan is supplied, in which case
     ``solve``'s ``cols`` is the REMAPPED column list and the plan arrays
     follow RHS).  CG vector updates and the preconditioner apply stay
-    row-local; the dot products reduce with one psum each.  ``row_chunk``
-    (the fused single-chip Pallas path) is mutually exclusive with a mesh.
+    row-local; the dot products reduce with one psum each.
+    ``fused_spmm`` (the single-device kernel) is mutually exclusive with a
+    mesh.
     """
     n_dev = 1
     if mesh is not None:
@@ -1103,9 +1054,9 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
         return lambda X: _block_apply(pdata, X)
 
     if mesh is not None:
-        if row_chunk is not None:
-            raise ValueError("make_committed_solver: row_chunk (fused "
-                             "single-chip SpMM) cannot combine with a mesh")
+        if fused_spmm:
+            raise ValueError("make_committed_solver: fused_spmm (single-"
+                             "device kernel) cannot combine with a mesh")
         if nb % n_dev:
             raise ValueError(
                 f"make_committed_solver(mesh=...): nb ({nb}) must be a "
@@ -1171,8 +1122,7 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
     def assemble(hps, rows, cols, xb, mask, noise_diag_pad):
         rows_c = jnp.minimum(rows, nb - 1)
         cols_c = jnp.minimum(cols, nb - 1)
-        # row-aligned schedules pad WITHIN rows using a column sentinel
-        # (row real, col == nb) — zero those tiles too
+        # a sentinel in either index marks a padding tile — zero it
         live = jnp.logical_and(rows < nb, cols < nb)
         tiles = _assemble_chunked_tiles(kernel_fn, B, solver_dtype, hps,
                                         rows_c, cols_c, live, xb, mask)
@@ -1185,14 +1135,14 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
         return tiles, Minv
 
     def solve(tiles, pdata, rows, cols, noise_diag_pad, RHS):
-        # row_chunk set: ``rows`` is the PER-CHUNK row index (rowsc) from
-        # row_aligned_schedule; otherwise the per-tile row list
-        if row_chunk is not None and RHS.dtype == jnp.float64:
+        # fused_spmm: ``rows`` is the (nb+1,) CSR row offsets of the
+        # row-sorted schedule; otherwise the per-tile row list
+        if fused_spmm and RHS.dtype == jnp.float64:
             raise ValueError(
-                "make_committed_solver(row_chunk=...): the fused "
-                "row-aligned SpMM accumulates in f32 — f64 (direct-"
-                "semantics) solves must keep row_chunk=None so the scan "
-                "path preserves full precision")
+                "make_committed_solver(fused_spmm=True): the kernel "
+                "accumulates in f32 — f64 (direct-semantics) solves must "
+                "keep fused_spmm=False so the scan path preserves full "
+                "precision")
         cols_c = jnp.minimum(cols, nb - 1)
         c = RHS.shape[1]
         T = int(cols.shape[0])
@@ -1200,9 +1150,10 @@ def make_committed_solver(kernel_fn, nb, B, *, cg_iters=96, solver_dtype=None,
         wide = T * B * c * acc_bytes * 2 > _SPMV_FLAT_BUDGET
 
         def matvec(X):
-            if row_chunk is not None:
-                out = _spmv_scan_fused(rows, cols, tiles, X, nb, B,
-                                       C=row_chunk, mv_dtype=solver_dtype)
+            if fused_spmm:
+                from .pallas_kernels import row_block_spmm
+                out = row_block_spmm(rows, cols, tiles, X, nb, B,
+                                     mv_dtype=solver_dtype)
             elif wide:
                 rows_c = jnp.minimum(rows, nb - 1)
                 out = _spmv_scan(rows_c, cols_c, tiles, X, nb, B,

@@ -4,9 +4,10 @@ Reference behavior being replaced: fvGP's Dask-distributed COO/CSR assembly
 (/root/reference/fvgp/gp2Scale_covariance.py) and scipy.sparse matvec-based
 Krylov (/root/reference/fvgp/gp_lin_alg.py:1184-1291).
 
-TPU-first design: instead of an element-wise COO matrix, the covariance is a
-set of dense B×B *tiles* on a fixed block grid ("BCOO-of-tiles").  Tiles are
-what the MXU wants: the SpMM is a batched (nnzb, B, B) x (nnzb, B, k)
+Accelerator-first design: instead of an element-wise COO matrix, the
+covariance is a set of dense B×B *tiles* on a fixed block grid
+("BCOO-of-tiles").  Tiles are
+what the matrix units want: the SpMM is a batched (nnzb, B, B) x (nnzb, B, k)
 einsum plus a segment-sum — two ops XLA fuses and partitions well — and the
 block-Jacobi preconditioner is a batched Cholesky of the diagonal tiles.
 Sparsity lives at tile granularity, decided by bounding-box distance of the
@@ -64,28 +65,15 @@ _MATMAT_BUDGET = 2 << 30
 
 @functools.partial(jax.jit, static_argnames=("nb", "block_size"))
 def _bsm_matmat(rows, cols, tiles, X, nb, block_size):
-    """(n, k) = sum over tiles of tile @ X[col-block] scattered to row-block.
-
-    On TPU, when X and the accumulator fit VMEM, the VMEM-resident Pallas
-    kernel runs instead of the gather→einsum→segment-sum formulation
-    (1.2-1.33x; docs/source/roofline.md)."""
-    import os
+    """(n, k) = sum over tiles of tile @ X[col-block] scattered to row-block
+    (gather → batched einsum → segment-sum)."""
     n_pad = nb * block_size
     k = X.shape[1]
     Xp = jnp.zeros((n_pad, k), X.dtype).at[:X.shape[0]].set(X)
-    if (jax.default_backend() == "tpu" and X.dtype != jnp.float64
-            and os.environ.get("FVGP_TPU_PALLAS_SPMM", "1") != "0"):
-        from ..ops.pallas_kernels import chunked_spmm, chunked_spmm_fits
-        if chunked_spmm_fits(tiles.shape[0], nb, block_size, k,
-                             tiles.dtype.itemsize):
-            out = chunked_spmm(jnp.minimum(rows, nb - 1),
-                               jnp.minimum(cols, nb - 1),
-                               tiles, Xp, nb, block_size)
-            return out[:X.shape[0]]
     Xb = Xp.reshape(nb, block_size, k)
     gathered = Xb[cols]                                   # (nnzb, B, k)
     prod = jnp.einsum("nij,njk->nik", tiles, gathered,
-                      preferred_element_type=X.dtype)     # MXU batched matmul
+                      preferred_element_type=X.dtype)     # batched matmul
     out = jax.ops.segment_sum(prod, rows, num_segments=nb)
     return out.reshape(n_pad, k)[:X.shape[0]]
 
@@ -213,7 +201,7 @@ class BlockSparseMatrix:
         without this bound (these products run on the host-driven
         posterior path, so a python loop over chunks costs nothing).
         ``itemsize`` is the RHS element size: 8 on the float64/CPU-parity
-        path, 4 on TPU f32."""
+        path, 4 on the accelerator's f32."""
         per_col = (2 * int(self.tiles.shape[0]) * int(self.block_size)
                    * int(itemsize))
         return max(1, min(int(k), _MATMAT_BUDGET // max(per_col, 1)))

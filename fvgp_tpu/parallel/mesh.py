@@ -29,7 +29,7 @@ SLICE_AXIS = "slice"
 def _slice_groups(devices, process_fallback=False):
     """Partition ``devices`` into hardware slices, outer-mesh first.
 
-    TPU multi-slice (megascale) exposes ``slice_index`` per device — the
+    Multi-slice platforms expose ``slice_index`` per device — the
     only signal ``layout='auto'`` trusts.  ``process_fallback=True``
     (explicit ``layout='2d'`` only) additionally treats each host process
     as a DCN domain; that is NOT safe to infer automatically, because a

@@ -8,7 +8,7 @@ what turns a compactly-supported kernel into tile-level sparsity.
 
 The reference reaches sparsity differently — per-element COO inside each
 Dask block via KD-tree support search (kernels.py:658-738) — which has no
-static-shape equivalent on a TPU.  Reordering the dataset once on the host
+static-shape equivalent on a GPU.  Reordering the dataset once on the host
 is the shape-stable answer: a GP is permutation-invariant, so only the
 internal storage order changes.
 """

@@ -4,7 +4,7 @@ Reference behavior replaced: /root/reference/fvgp/gp2Scale_covariance.py
 (Dask blockwise/rowwise task fan-out, host COO assembly, int32 downcast,
 upper-triangle scheduling with host mirroring).
 
-TPU-first pipeline:
+Accelerator-first pipeline:
 
 1. *Structure* (host, numpy, cheap): points are tiled into fixed blocks of
    ``block_size`` consecutive indices.  Candidate tile pairs are pruned by
@@ -14,7 +14,7 @@ TPU-first pipeline:
    bucket size so jit caches survive hyperparameter moves that change the
    occupancy ("dynamic sparsity under jit", SURVEY.md §7 hard part 1).
 2. *Tiles* (device, batched): one vmapped kernel evaluation computes a chunk
-   of tiles at a time — each tile a (B, B) kernel block on the MXU.  For the
+   of tiles at a time — each tile a (B, B) kernel block on the device.  For the
    symmetric prior covariance only the upper triangle is scheduled (half the
    kernel FLOPs, like ref gp2Scale_covariance.py:278-287) and the mirror is
    a device transpose, not a host pass.
@@ -105,7 +105,7 @@ def support_geometry(prior, hyperparameters, args):
     kern = getattr(prior, "kernel", None)
     if kern is wendland_anisotropic or getattr(kern, "__name__", "") in (
             "wendland_anisotropic", "wendland_anisotropic_gp2Scale_cpu",
-            "wendland_anisotropic_gp2Scale_gpu", "wendland_anisotropic_tpu"):
+            "wendland_anisotropic_gp2Scale_gpu"):
         return hps[1:], 1.0
     warnings.warn(
         "gp2Scale: the kernel's support is unknown, so no tile pruning is "
@@ -304,7 +304,7 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *, batch_size=10000,
             # HBM.  Symmetric priors use the exact geometric test in the
             # native C++ runtime (a tile is live iff some point pair sits
             # inside the support radius — equivalent to max|k| > 0 for
-            # compactly supported kernels, and the TPU stays free);
+            # compactly supported kernels, and the device stays free);
             # rectangular blocks fall back to a device assembly pass with
             # fixed shapes (no varying-shape gather -> no per-chunk
             # recompile).
@@ -545,7 +545,7 @@ def distributed_covariance(prior, x1, x2, hyperparameters, *, batch_size=10000,
 
 # ---------------------------------------------------------------------------
 # Host-side worker equivalents (power-user surface of the reference's Dask
-# engine, ref gp2Scale_covariance.py:41-224).  The TPU engine above never
+# engine, ref gp2Scale_covariance.py:41-224).  The device engine above never
 # calls these — tiles are assembled on device — but the reference unit-tests
 # and exposes them (ref tests/test_fvgp.py:3148-3265), and they remain the
 # right tool when a user wants a scipy CSR covariance on the host (e.g. to
@@ -689,7 +689,7 @@ def covariance_csr(kernel, x1, x2, hyperparameters, *, batch_size=10000,
     """Host scipy CSR covariance through the worker helpers — the
     reference's full Dask pipeline run in-process (blockwise: upper-triangle
     block schedule + mirrored single-alloc assembly; rowwise: finished CSR
-    strips).  For external host solvers; the TPU engine is
+    strips).  For external host solvers; the device engine is
     :func:`distributed_covariance`."""
     if k_n_params is None:          # sniff the kernel arity like GPprior
         import inspect

@@ -157,7 +157,7 @@ def test_dense_cross_oom_falls_back(monkeypatch):
 
     def oom(*a, **k):
         raise jax.errors.JaxRuntimeError(
-            "RESOURCE_EXHAUSTED: TPU backend error (ResourceExhausted).")
+            "RESOURCE_EXHAUSTED: device backend error (ResourceExhausted).")
 
     monkeypatch.setattr(gpp, "_dense_cross_scan", oom)
     with warnings.catch_warnings(record=True) as rec:

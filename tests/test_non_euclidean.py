@@ -23,7 +23,7 @@ def _string_kernel(x1, x2, hps):
     return hps[0] * K
 
 
-WORDS = ["gaussian", "process", "kernel", "matern", "wendland", "tpu",
+WORDS = ["gaussian", "process", "kernel", "matern", "wendland", "gpu",
          "pallas", "mesh", "shard", "jit"]
 Y = np.array([float(len(w)) for w in WORDS])
 

@@ -157,7 +157,7 @@ def test_sparse_lml_factory_validation():
         make_committed_solver(wendland_anisotropic, 7, 16, mesh=mesh)
     with pytest.raises(ValueError, match="cannot combine with a mesh"):
         make_committed_solver(wendland_anisotropic, 8, 16, mesh=mesh,
-                              row_chunk=8)
+                              fused_spmm=True)
 
 
 def test_mesh_paths_with_cast_streaming(eight_devices):
@@ -256,7 +256,7 @@ def test_slq_f32_lanczos_breakdown_no_nan():
 
 
 def test_committed_fused_path_rejects_f64():
-    """row_chunk (the fused f32-accumulating SpMM) must refuse f64 solves
+    """fused_spmm (the f32-accumulating kernel) must refuse f64 solves
     instead of silently truncating the documented full-precision
     semantics."""
     import jax
@@ -272,13 +272,12 @@ def test_committed_fused_path_rejects_f64():
     rows = np.repeat(np.arange(nb), nb).astype(np.int32)
     cols = np.tile(np.arange(nb), nb).astype(np.int32)
     assemble, solve = make_committed_solver(wendland_anisotropic, nb, B,
-                                            row_chunk=4)
+                                            fused_spmm=True)
     hps = jnp.asarray(np.array([1.0, 2.0, 2.0]))
-    from fvgp_tpu.ops.pallas_kernels import row_aligned_schedule
-    rows_p, cols_p, rowsc, _ = row_aligned_schedule(rows, cols, nb, C=4)
-    tiles, pdata = jax.jit(assemble)(hps, jnp.asarray(rows_p),
-                                     jnp.asarray(cols_p), xb, mask,
+    from fvgp_tpu.ops.pallas_kernels import row_offsets
+    tiles, pdata = jax.jit(assemble)(hps, jnp.asarray(rows),
+                                     jnp.asarray(cols), xb, mask,
                                      noise_pad)
     with pytest.raises(ValueError, match="accumulates in f32"):
-        solve(tiles, pdata, jnp.asarray(rowsc), jnp.asarray(cols_p),
-              noise_pad, (y_pad * ypad_mask)[:, None])
+        solve(tiles, pdata, jnp.asarray(row_offsets(rows, nb)),
+              jnp.asarray(cols), noise_pad, (y_pad * ypad_mask)[:, None])

@@ -202,7 +202,7 @@ def test_log_likelihood_variance_contract(small_data):
 @pytest.mark.slow
 def test_gp2scale_auto_mode_large_n_is_preconditioned_cg():
     """At large N the auto-selected gp2Scale mode is sparseCGpre — a
-    documented TPU deviation from the reference's unpreconditioned
+    documented deviation from the reference's unpreconditioned
     sparseMINRES (ref gp_kv.py:182-188): K+V is SPD, and at N=1M every
     Krylov matvec reads every stored tile, so the preconditioned solve is
     the difference between minutes and seconds per posterior call."""

@@ -30,8 +30,8 @@ def main():
     import jax
 
     backend = jax.default_backend()
-    on_tpu = backend not in ("cpu",)
-    N = int(os.environ.get("BENCH_N", 1_000_000 if on_tpu else 20_000))
+    on_accel = backend not in ("cpu",)
+    N = int(os.environ.get("BENCH_N", 1_000_000 if on_accel else 20_000))
     n_pred = int(os.environ.get("STUDY_NPRED", 500))
     log(f"backend={backend} N={N} n_pred={n_pred}")
 
@@ -49,7 +49,7 @@ def main():
                  "gp2Scale_storage_dtype": "bfloat16",
                  "sparse_cg_maxiter": 32,
                  "random_logdet_fixed_probes": 16}
-    if not on_tpu:
+    if not on_accel:
         base_args = {"gp2Scale_block_size": 128}
 
     rows = []
